@@ -1,11 +1,11 @@
-"""mpc_verde_tpu — a TPU-native batched nonlinear-MPC framework.
+"""mpc_verde_tpu — a batched nonlinear-MPC framework on JAX.
 
 A from-scratch rebuild of the capabilities of ``gabrielhaj/mpc-verde``
 (receding-horizon MPC for differential-drive robots, an inverted pendulum on a
 cart, and bicycle-model trajectory tracking), replacing its CasADi + IPOPT +
 MPCTools stack with JAX/XLA: ``lax.scan`` rollouts, autodiff linearization, a
-box-constrained iLQR/Riccati solver, Pallas kernels on the hot path, and
-``shard_map`` batch parallelism over TPU meshes.
+box-constrained iLQR/Riccati solver, a Pallas Riccati kernel for NVIDIA GPUs,
+and ``shard_map`` batch parallelism over device meshes.
 
 Layer map (mirrors SURVEY.md §1):
   L0 autodiff/tracing      -> JAX itself

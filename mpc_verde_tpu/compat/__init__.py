@@ -1,7 +1,7 @@
 """mpctools-compatible API surface.
 
 Lets code written against the reference's MPCTools contract (SURVEY.md §2.2)
-run on the TPU-native stack with the same call shapes:
+run on the JAX stack with the same call shapes:
 
     import mpc_verde_tpu.compat as mpc
     f = mpc.getCasadiFunc(ode, [Nx, Nu], ["x", "u"], rk4=True, Delta=dt)

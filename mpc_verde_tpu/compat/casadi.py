@@ -23,7 +23,7 @@ provides that surface so those scripts port with an import swap:
     ``prob['p']`` (any rearrangement of symbols, as in
     ``OPT_variables = U.reshape((-1,1))``), traces f/g as JAX functions of
     the packed vectors, and solves with the jitted augmented-Lagrangian
-    projected-Newton NLP solver (``solver/nlp.py``) — the TPU-native stand-in
+    projected-Newton NLP solver (``solver/nlp.py``) — the JAX stand-in
     for IPOPT.  The solver object is reusable and its solve is compiled once.
 
 No CasADi code is used or copied; semantics were matched against the
@@ -865,7 +865,7 @@ def nlpsol(name: str, plugin: str, prob: dict, opts: Optional[dict] = None):
     """``ca.nlpsol('solver', 'ipopt', {'f','x','g','p'}, opts)`` equivalent.
 
     The plugin string is accepted for script compatibility; the solve is the
-    jitted AL/projected-Newton NLP solver on the JAX backend (TPU/CPU).
+    jitted AL/projected-Newton NLP solver on the JAX backend (GPU/CPU).
     """
     return _NlpSolver(name, plugin, prob, opts)
 

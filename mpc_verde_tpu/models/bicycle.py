@@ -12,7 +12,7 @@ References:
     m=1200, a=1.5, b=2, Ca=55000, Jz=1350:
     ``Trajectory Tracking/Trajectory_tracking_dynamic_model.py:37-42,119-128``.
 
-TPU-first design note: the reference reconstructs CasADi functions, c2d, and a
+Design note: the reference reconstructs CasADi functions, c2d, and a
 fresh IPOPT solver inside the simulation loop for every LTV step (an
 anti-pattern called out in SURVEY.md §3.4).  Here the LTV matrices are *data*:
 ``*_coeffs`` functions are jittable maps ``speed -> (Ac, Bc)`` evaluated inside

@@ -7,7 +7,7 @@ pinned to 0 after: ``Inverted_pendulum/...mpctools.py:34-42``,
 (``test2.py:44-48``), with Du appearing in stage costs
 (``Inverted_pendulum/...mpctools.py:51-53``).
 
-TPU-native treatment: augment the state with the previous control,
+Treatment here: augment the state with the previous control,
 ``z = [x; u_prev]``, and make the *rate* the control, ``w = Du``:
 
     z_next = [ F(x, u_prev + w, p) ; u_prev + w ]

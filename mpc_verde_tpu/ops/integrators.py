@@ -1,6 +1,6 @@
 """Fixed-step integrators and discretization utilities.
 
-TPU-native replacements for the reference's discretization stack:
+JAX replacements for the reference's discretization stack:
   * Euler propagation (``Casadi/single_shooting_v1.py:85-91``)
   * fixed-step RK4 with M substeps, optionally integrating a cost quadrature
     alongside the state (``Casadi/single_shooting_v2.py:100-113``,
@@ -79,7 +79,7 @@ def rk45_step(f, dt: float, rtol: float = 1e-8, atol: float = 1e-10,
 
     The reference's plant simulator delegates to CasADi's adaptive
     integrators (``mpc.DiscreteSimulator`` — CVODES); this is the jittable
-    TPU-native equivalent: a tolerance-controlled embedded pair with a PI
+    equivalent: a tolerance-controlled embedded pair with a PI
     step controller inside a bounded ``lax.while_loop``.  Use it when the
     plant must be integrated to a *tolerance* rather than a step count
     (plant/controller fidelity contrast, stiff-ish LTV models); use

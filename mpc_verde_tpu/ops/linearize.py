@@ -4,7 +4,7 @@ Replaces CasADi's symbolic Jacobian/Hessian machinery (the exact derivatives
 IPOPT consumes through ``ca.nlpsol`` — SURVEY.md §2.3): ``jax.jacfwd`` on the
 discrete dynamics and a forward-over-reverse Hessian of the stage cost, both
 ``vmap``-ed over the horizon so the whole trajectory linearizes as one fused
-batched kernel on the VPU/MXU.
+batched kernel.
 """
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ def dynamics_hessians(F: Callable):
 
     Shapes: fxx (nx, nx, nx) with fxx[i, j, k] = d2 F_i / dx_j dx_k;
     fux (nx, nu, nx); fuu (nx, nu, nu).  At nx <= 6 these are a handful of
-    extra fused HLOs per stage — cheap on the VPU, and they buy quadratic
+    extra fused HLOs per stage — cheap elementwise work, and they buy quadratic
     local convergence (iLQR's Gauss-Newton tail is what stalls on
     unicycle-type problems).
     """

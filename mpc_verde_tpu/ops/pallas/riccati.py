@@ -1,23 +1,27 @@
-"""Pallas TPU kernel: batched Riccati backward pass with exact box-QP stages.
+"""Pallas kernel (Triton route): batched Riccati backward with exact box QPs.
 
-This is the solver's hot loop (~70% of solve time as vmapped XLA: 40
-sequential scan steps, each dispatching dozens of tiny ops).  The kernel
-restructures it TPU-natively:
+The backward pass is N sequential stages of arithmetic on 3x3 / 2x2
+per-problem matrices.  As vmapped XLA it is a ``lax.scan`` whose every stage
+is its own handful of kernel launches.  This kernel runs the whole recursion
+in one launch:
 
-  * **Batch-major structure-of-arrays**: each (8, 128) VPU tile holds one
-    matrix *entry* for 1024 independent problems (batch fills sublanes x
-    lanes).  Every matrix operation in the recursion becomes a handful of
-    fused elementwise tile ops — no tiny matmuls, no per-problem layout.
-  * **Stages as a sequential grid dimension**: grid = (batch_cells, N); the
-    value function (Vx, Vxx) lives in VMEM scratch carried across the stage
-    iterations while Pallas double-buffers each stage's derivative block from
-    HBM. One kernel launch replaces the whole lax.scan.
-  * **Exact stage box QP by static active-set enumeration**: for nu <= 4 each
-    of the 3^nu patterns has *static* structure (which coordinates are
-    clamped), so every candidate is closed-form tile arithmetic (division /
-    2x2 adjugate for <= 2 free coordinates, unrolled no-pivot Gaussian
-    elimination for 3-4) and the feasible-minimum is a chain of selects —
-    branch-free, exactly the enumeration of ``solver/boxqp.py``.
+  * **Structure-of-arrays layout** ``(N, entries, B)``: problems sit on the
+    contiguous axis, so the loads of one matrix entry by a warp coalesce.
+    Every matrix operation of the recursion becomes a few elementwise vector
+    operations over the program's block of problems (one problem per
+    thread) — no tiny matmuls, far below what the tensor cores take.
+  * **Stages as an in-kernel loop**: each program owns a power-of-two block
+    of problems and walks the N stages in reverse with ``lax.fori_loop``.
+    The value function (Vx, Vxx) and the dV1/dV2/gmax reductions are the
+    loop carry and stay in registers.
+  * **Exact stage box QP by active-set enumeration**: for nu <= 4 every
+    one of the 3^nu patterns (which coordinates are clamped) is solved and
+    the feasible minimum kept by a chain of selects — branch-free, exactly
+    the enumeration of ``solver/boxqp.py``.  For nu <= 2 the patterns are
+    unrolled with static closed forms (division / 2x2 adjugate); for
+    nu = 3, 4 a loop over the pattern index solves each by masked no-pivot
+    elimination (unrolled, 27-81 eliminations per stage take the GPU
+    compiler minutes).
 
 Semantics match ``solver/ilqr.py``'s backward pass (including full-DDP
 second-order terms and the projected-gradient stationarity measure) to f32
@@ -26,46 +30,54 @@ round-off; see tests/test_pallas_riccati.py.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+import itertools
+from typing import Dict
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu_triton
 
-_SUB, _LANE = 8, 128
-_CELL = _SUB * _LANE  # problems per grid cell
+# Problems per program and warps per program, chosen on an H100 at N=40,
+# W=1024, (nx, nu) = (3, 2) (PERF.md): a block of 32 problems on one warp
+# spreads a 1024-slot batch over 32 SMs; larger blocks or more warps were
+# no faster, and two pipeline stages were ~4 % faster than one.
+BLOCK = 32
+NUM_WARPS = 1
 
 _BIG = 1e30
 
 
-def _patterns_static(nu: int):
-    """Static active-set patterns: tuples over {0: free, 1: lower, 2: upper}."""
-    import itertools
+def _max(a, b):
+    """``jnp.maximum`` with XLA's NaN propagation.  A GPU's ``max.f32``
+    returns the non-NaN operand, so a NaN stage gradient would vanish from
+    gmax, which the solver's convergence tests read."""
+    return jnp.where(jnp.isnan(a), a,
+                     jnp.where(jnp.isnan(b), b, jnp.maximum(a, b)))
 
-    return list(itertools.product((0, 1, 2), repeat=nu))
+
+def _min(a, b):
+    """``jnp.minimum`` with XLA's NaN propagation (see ``_max``)."""
+    return jnp.where(jnp.isnan(a), a,
+                     jnp.where(jnp.isnan(b), b, jnp.minimum(a, b)))
 
 
-def _backward_stage(nx: int, nu: int, use_ddp: bool, tol: float,
+def _backward_stage(nx: int, nu: int, use_ddp: bool, tol: float, shape,
                     E, Vx, Vxx, rg, ds):
-    """One Riccati stage of the backward recursion on (8, 128) tiles.
-
-    Shared by the HBM-derivative kernel (``_make_kernel``, derivatives
-    streamed from HBM) and the fused kernel (``fused.py``, derivatives
-    computed in-VMEM from the trajectory).
+    """One Riccati stage of the backward recursion on vectors of problems.
 
     Args:
-      E: accessor ``E(name, e) -> (8, 128) tile`` for entry ``e`` of stage
+      shape: shape of every operand (the program's block of problems).
+      E: accessor ``E(name, e) -> array`` for entry ``e`` of stage
         derivative ``name`` (fx, fu, lx, lu, lxx, luu, lux, fxx, fux, fuu,
         dlb, dub — flattened row-major).
-      Vx, Vxx: value-function tiles (lists of nx / nx*nx).
-      rg: regularization tile; ds: per-problem DDP on/off scale tile.
+      Vx, Vxx: value-function operands (sequences of nx / nx*nx).
+      rg: regularization; ds: per-problem DDP on/off scale.
 
     Returns ``(kff [nu], K [nu][nx], Vx_n [nx], Vxx_n [nxx, symmetrized],
     dV1_inc, dV2_inc, pgmax_stage)``.
     """
-    patterns = _patterns_static(nu)
+    patterns = list(itertools.product((0, 1, 2), repeat=nu))
 
     # ---- Q expansion ---------------------------------------------
     Qx = [E("lx", i) + sum(E("fx", j * nx + i) * Vx[j] for j in range(nx))
@@ -113,40 +125,17 @@ def _backward_stage(nx: int, nu: int, use_ddp: bool, tol: float,
     def solve_free(free, rhss):
         """Solve Quu[F,F] X = rhs for each rhs, F a static index set.
 
-        k = 1, 2 use the closed forms (division / 2x2 adjugate —
-        bit-identical to the original nu <= 2 kernel); k = 3, 4 use
-        unrolled no-pivot Gaussian elimination (Quu is SPD + reg, so
-        leading pivots are positive).  Everything is elementwise
-        (8, 128) tile arithmetic; rhss is a list of k-length lists.
+        k = 1, 2 use the closed forms (division / 2x2 adjugate).  rhss is a
+        list of k-length lists.
         """
-        k = len(free)
-        if k == 1:
+        if len(free) == 1:
             d = Quu[free[0]][free[0]]
             return [[r[0] / d] for r in rhss]
-        if k == 2:
-            f0, f1 = free
-            det = Quu[f0][f0] * Quu[f1][f1] - Quu[f0][f1] * Quu[f1][f0]
-            return [[(r[0] * Quu[f1][f1] - r[1] * Quu[f0][f1]) / det,
-                     (r[1] * Quu[f0][f0] - r[0] * Quu[f1][f0]) / det]
-                    for r in rhss]
-        A = [[Quu[free[r]][free[c]] for c in range(k)]
-             for r in range(k)]
-        X = [r[:] for r in rhss]
-        for p in range(k):
-            ip = 1.0 / A[p][p]
-            for r in range(p + 1, k):
-                m = A[r][p] * ip
-                for c in range(p + 1, k):
-                    A[r][c] = A[r][c] - m * A[p][c]
-                for x in X:
-                    x[r] = x[r] - m * x[p]
-        for x in X:
-            for r in reversed(range(k)):
-                acc = x[r]
-                for c in range(r + 1, k):
-                    acc = acc - A[r][c] * x[c]
-                x[r] = acc / A[r][r]
-        return X
+        f0, f1 = free
+        det = Quu[f0][f0] * Quu[f1][f1] - Quu[f0][f1] * Quu[f1][f0]
+        return [[(r[0] * Quu[f1][f1] - r[1] * Quu[f0][f1]) / det,
+                 (r[1] * Quu[f0][f0] - r[0] * Quu[f1][f0]) / det]
+                for r in rhss]
 
     def qp_candidate(pat):
         free = [a for a in range(nu) if pat[a] == 0]
@@ -166,7 +155,7 @@ def _backward_stage(nx: int, nu: int, use_ddp: bool, tol: float,
             v[a] = cv
             feas = AND(feas, jnp.isfinite(cv))
 
-        K = [[jnp.zeros((_SUB, _LANE), jnp.float32) for _ in range(nx)]
+        K = [[jnp.zeros(shape, jnp.float32) for _ in range(nx)]
              for _ in range(nu)]
         if free:
             # kff: Quu_FF v_F = -(Qu_F + Quu_FC v_C);
@@ -193,7 +182,7 @@ def _backward_stage(nx: int, nu: int, use_ddp: bool, tol: float,
             elif pat[a] == 2:
                 feas = AND(feas, grad[a] <= tol)
         if feas is None:
-            feas = jnp.full((_SUB, _LANE), True)
+            feas = jnp.full(shape, True)
 
         obj = sum(0.5 * v[a] * Quu[a][b] * v[b]
                   for a in range(nu) for b in range(nu)) \
@@ -201,17 +190,78 @@ def _backward_stage(nx: int, nu: int, use_ddp: bool, tol: float,
         obj = jnp.where(feas, obj, _BIG)
         return v, K, obj
 
-    best_v, best_K, best_obj = qp_candidate(patterns[0])
-    for pat in patterns[1:]:
-        v, K, obj = qp_candidate(pat)
-        better = obj < best_obj
-        best_v = [jnp.where(better, v[a], best_v[a]) for a in range(nu)]
-        best_K = [[jnp.where(better, K[a][i], best_K[a][i])
-                   for i in range(nx)] for a in range(nu)]
-        best_obj = jnp.where(better, obj, best_obj)
+    def qp_pattern(p):
+        """``qp_candidate`` of pattern index ``p`` (a traced scalar, digits
+        base 3 in ``patterns`` order) with the pattern's structure as
+        masks: the free block is solved by no-pivot elimination of the full
+        system whose clamped rows and columns are replaced by the
+        identity, so one loop body serves all 3^nu patterns (Quu is SPD +
+        reg on every free block, so the pivots are positive)."""
+        # lax.div/rem: p >= 0, and jnp's floor division does not lower to
+        # Triton
+        p = jnp.asarray(p, jnp.int32)
+        st = [jax.lax.rem(jax.lax.div(p, jnp.int32(3 ** (nu - 1 - a))),
+                          jnp.int32(3)) for a in range(nu)]
+        free = [s == 0 for s in st]
+        cv = [jnp.where(st[a] == 1, lo[a], jnp.where(st[a] == 2, hi[a], 0.0))
+              for a in range(nu)]
+        A = [[jnp.where(free[r] & free[c], Quu[r][c],
+                        1.0 if r == c else 0.0) for c in range(nu)]
+             for r in range(nu)]
+        X = [[jnp.where(free[a], -(Qu[a] + sum(
+                  jnp.where(free[c], 0.0, Quu[a][c] * cv[c])
+                  for c in range(nu))), cv[a]) for a in range(nu)]]
+        X += [[jnp.where(free[a], -Qux[a][i], 0.0) for a in range(nu)]
+              for i in range(nx)]
+        for q in range(nu):
+            ip = 1.0 / A[q][q]
+            for r in range(q + 1, nu):
+                m = A[r][q] * ip
+                for c in range(q + 1, nu):
+                    A[r][c] = A[r][c] - m * A[q][c]
+                for x in X:
+                    x[r] = x[r] - m * x[q]
+        for x in X:
+            for r in reversed(range(nu)):
+                acc = x[r]
+                for c in range(r + 1, nu):
+                    acc = acc - A[r][c] * x[c]
+                x[r] = acc / A[r][r]
+        v = X[0]
+        K = [[X[1 + i][a] for i in range(nx)] for a in range(nu)]
+        grad = [Qu[a] + sum(Quu[a][b] * v[b] for b in range(nu))
+                for a in range(nu)]
+        feas = None
+        for a in range(nu):
+            fa = jnp.where(
+                free[a], (v[a] >= lo[a] - tol) & (v[a] <= hi[a] + tol),
+                jnp.isfinite(cv[a]) & jnp.where(st[a] == 1, grad[a] >= -tol,
+                                                grad[a] <= tol))
+            feas = fa if feas is None else feas & fa
+        obj = sum(0.5 * v[a] * Quu[a][b] * v[b]
+                  for a in range(nu) for b in range(nu)) \
+            + sum(Qu[a] * v[a] for a in range(nu))
+        return v, K, jnp.where(feas, obj, _BIG)
 
-    kff = best_v
-    K = best_K
+    def keep_better(best, cand):
+        (best_v, best_K, best_obj), (v, K, obj) = best, cand
+        better = obj < best_obj
+        return ([jnp.where(better, v[a], best_v[a]) for a in range(nu)],
+                [[jnp.where(better, K[a][i], best_K[a][i])
+                  for i in range(nx)] for a in range(nu)],
+                jnp.where(better, obj, best_obj))
+
+    if nu <= 2:
+        # <= 9 patterns: unrolled, each with its static closed-form solve
+        best = qp_candidate(patterns[0])
+        for pat in patterns[1:]:
+            best = keep_better(best, qp_candidate(pat))
+    else:
+        # 27 / 81 patterns: a loop, so the compiled stage stays small
+        best = jax.lax.fori_loop(
+            1, len(patterns), lambda p, b: keep_better(b, qp_pattern(p)),
+            qp_pattern(0))
+    kff, K, _ = best
 
     # ---- step-quality / stationarity increments -----------------------
     dV1_inc = sum(kff[a] * Qu[a] for a in range(nu))
@@ -219,8 +269,8 @@ def _backward_stage(nx: int, nu: int, use_ddp: bool, tol: float,
                   for a in range(nu) for b in range(nu))
     pgmax = None
     for a in range(nu):
-        pg = jnp.abs(-jnp.clip(-Qu[a], lo[a], hi[a]))
-        pgmax = pg if pgmax is None else jnp.maximum(pgmax, pg)
+        pg = jnp.abs(_min(_max(-Qu[a], lo[a]), hi[a]))
+        pgmax = pg if pgmax is None else _max(pgmax, pg)
 
     # ---- value function update ----------------------------------------
     Quk = [sum(Quu[a][b] * kff[b] for b in range(nu)) for a in range(nu)]
@@ -240,103 +290,58 @@ def _backward_stage(nx: int, nu: int, use_ddp: bool, tol: float,
     return kff, K, Vx_n, Vxx_sym, dV1_inc, dV2_inc, pgmax
 
 
-def _make_kernel(nx: int, nu: int, N: int, C: int, use_ddp: bool, tol: float):
-    """Kernel processing C stages per grid invocation (stage chunking).
+_STAGE_INPUTS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux",
+                 "fxx", "fux", "fuu", "dlb", "dub")
 
-    Per-invocation fixed costs (dispatch, pipeline setup) dominated the
-    one-stage-per-step version; chunking C stages into each grid step cuts
-    the sequential grid length N -> N/C while the per-stage math stays
-    identical unrolled tile arithmetic (``_backward_stage``).
-    """
+
+def _make_kernel(nx: int, nu: int, N: int, block: int, use_ddp: bool,
+                 tol: float):
+    """One program: ``block`` problems through all N stages, last first."""
     nxx = nx * nx
-    n_chunks = N // C
+    shape = (block,)
 
-    def kernel(fx, fu, lx, lu, lxx, luu, lux, fxx, fux, fuu, dlb, dub,
-               gN, HN, reg, ddpf,
-               kff_o, K_o, dV1_o, dV2_o, gmax_o,
-               Vx_s, Vxx_s, acc_s):
-        s = pl.program_id(1)  # chunk counter 0..n_chunks-1 (last stages first)
-        refs = {"fx": fx, "fu": fu, "lx": lx, "lu": lu, "lxx": lxx,
-                "luu": luu, "lux": lux, "fxx": fxx, "fux": fux, "fuu": fuu,
-                "dlb": dlb, "dub": dub}
+    def kernel(*refs):
+        stage = dict(zip(_STAGE_INPUTS, refs[:12]))
+        gN, HN, reg, ddpf = refs[12:16]
+        kff_o, K_o, dV1_o, dV2_o, gmax_o = refs[16:]
+        rg = reg[...]
+        ds = ddpf[...]
 
-        # ---- terminal init on the first chunk -----------------------------
-        @pl.when(s == 0)
-        def _():
-            for i in range(nx):
-                Vx_s[i] = gN[0, i]
-            for e in range(nxx):
-                Vxx_s[e] = HN[0, e]
-            for q in range(3):
-                acc_s[q] = jnp.zeros((_SUB, _LANE), jnp.float32)
+        def body(t, carry):
+            Vx, Vxx, acc = carry
+            k = N - 1 - t
 
-        Vx = [Vx_s[i] for i in range(nx)]
-        Vxx = [Vxx_s[e] for e in range(nxx)]
-        acc = [acc_s[0], acc_s[1], acc_s[2]]
-        rg = reg[0, 0]
-        ds = ddpf[0, 0]  # per-problem DDP on/off (Gauss-Newton fallback)
-
-        for cc in reversed(range(C)):
-            def E(name, e, _cc=cc):
-                return refs[name][0, _cc, e]
+            def E(name, e):
+                return stage[name][k, e]
 
             kff, K, Vx, Vxx, dV1_inc, dV2_inc, pgmax = _backward_stage(
-                nx, nu, use_ddp, tol, E, Vx, Vxx, rg, ds)
-            acc[0] = acc[0] + dV1_inc
-            acc[1] = acc[1] + dV2_inc
-            acc[2] = jnp.maximum(acc[2], pgmax)
-
+                nx, nu, use_ddp, tol, shape, E, Vx, Vxx, rg, ds)
             for a in range(nu):
-                kff_o[0, cc, a] = kff[a]
+                kff_o[k, a] = kff[a]
                 for i in range(nx):
-                    K_o[0, cc, a * nx + i] = K[a][i]
+                    K_o[k, a * nx + i] = K[a][i]
+            acc = (acc[0] + dV1_inc, acc[1] + dV2_inc,
+                   _max(acc[2], pgmax))
+            return tuple(Vx), tuple(Vxx), acc
 
-        for i in range(nx):
-            Vx_s[i] = Vx[i]
-        for e in range(nxx):
-            Vxx_s[e] = Vxx[e]
-        for q in range(3):
-            acc_s[q] = acc[q]
-
-        @pl.when(s == n_chunks - 1)
-        def _():
-            dV1_o[0] = acc[0]
-            dV2_o[0] = acc[1]
-            gmax_o[0] = acc[2]
+        z = jnp.zeros(shape, jnp.float32)
+        init = (tuple(gN[i] for i in range(nx)),
+                tuple(HN[e] for e in range(nxx)), (z, z, z))
+        _, _, acc = jax.lax.fori_loop(0, N, body, init)
+        dV1_o[...] = acc[0]
+        dV2_o[...] = acc[1]
+        gmax_o[...] = acc[2]
 
     return kernel
 
-def _to_tiles(x, B, entries):
-    """(B, N, ...) -> (G, N, entries, 8, 128) batch-major tiles."""
-    G = B // _CELL
-    N = x.shape[1]
-    flat = x.reshape(B, N, entries)
-    t = flat.reshape(G, _SUB, _LANE, N, entries)
-    return jnp.transpose(t, (0, 3, 4, 1, 2))
 
-
-def _to_tiles_static(x, B):
-    """(B, ...) per-problem (no stage dim) -> (G, entries, 8, 128)."""
-    G = B // _CELL
-    flat = x.reshape(B, -1)
-    e = flat.shape[-1]
-    t = flat.reshape(G, _SUB, _LANE, e)
-    return jnp.transpose(t, (0, 3, 1, 2))
-
-
-def _from_tiles(x, B, entries):
-    """(G, N, entries, 8, 128) -> (B, N, entries)."""
-    G = B // _CELL
-    N = x.shape[1]
-    t = jnp.transpose(x, (0, 3, 4, 1, 2))
-    return t.reshape(B, N, entries)
-
-
-@functools.partial(jax.jit, static_argnames=("nx", "nu", "use_ddp", "tol"))
+@functools.partial(jax.jit, static_argnames=("nx", "nu", "use_ddp", "tol",
+                                             "interpret"))
 def riccati_backward_pallas(derivs: Dict[str, jnp.ndarray], dlb, dub, gN, HN,
                             reg, ddp_scale=None, *, nx: int, nu: int,
-                            use_ddp: bool = True, tol: float = 1e-8):
-    """Batched box-constrained Riccati backward pass on TPU.
+                            use_ddp: bool = True, tol: float = 1e-8,
+                            interpret: bool = False):
+    """Batched box-constrained Riccati backward pass (Triton route).
 
     Args:
       derivs: dict of (B, N, ...) stage derivatives (fx, fu, lx, lu, lxx,
@@ -344,125 +349,82 @@ def riccati_backward_pallas(derivs: Dict[str, jnp.ndarray], dlb, dub, gN, HN,
       dlb, dub: (B, N, nu) delta-control bounds (lb - u_nom, ub - u_nom).
       gN, HN: (B, nx), (B, nx, nx) terminal value gradient/Hessian.
       reg: (B,) per-problem Levenberg regularization added to Quu.
+      ddp_scale: optional (B,) per-problem second-order on/off scale.
       nx, nu: static dims (nu <= 4).
+      interpret: run the kernel in the Pallas interpreter (no GPU needed).
 
     Returns (kff (B, N, nu), K (B, N, nu, nx), dV1 (B,), dV2 (B,), gmax (B,)).
 
-    B is padded internally to a multiple of 1024.
+    B is padded internally to a multiple of ``BLOCK`` problems, the
+    power-of-two batch of one program (``NUM_WARPS`` warps).
     """
     if nu > 4:
         raise NotImplementedError(
-            "pallas backward supports nu <= 4 (3^nu active-set enumeration); "
-            "use backend='xla' (any nu) for wider control vectors")
+            "the Riccati kernel supports nu <= 4 (3^nu active-set "
+            "enumeration); use backend='xla' (any nu) for wider control "
+            "vectors")
     B0, N = derivs["fx"].shape[0], derivs["fx"].shape[1]
-    B = ((B0 + _CELL - 1) // _CELL) * _CELL
-    G = B // _CELL
+    B = -(-B0 // BLOCK) * BLOCK
 
-    def pad(x):
-        if x.shape[0] == B:
-            return x
-        pw = [(0, B - B0)] + [(0, 0)] * (x.ndim - 1)
-        return jnp.pad(x, pw)
+    def soa(x, entries):
+        """(B0, N, ...) -> (N, entries, B): problems on the minor axis."""
+        x = x.astype(jnp.float32).reshape(B0, N, entries)
+        return jnp.pad(x, ((0, B - B0), (0, 0), (0, 0))).transpose(1, 2, 0)
 
-    f32 = lambda x: pad(x.astype(jnp.float32))
+    def per_problem(x, entries, fill=0.0):
+        """(B0, ...) -> (entries, B)."""
+        x = x.astype(jnp.float32).reshape(B0, entries)
+        return jnp.pad(x, ((0, B - B0), (0, 0)),
+                       constant_values=fill).T
 
     nxx = nx * nx
-    args = [
-        _to_tiles(f32(derivs["fx"]), B, nxx),
-        _to_tiles(f32(derivs["fu"]), B, nx * nu),
-        _to_tiles(f32(derivs["lx"]), B, nx),
-        _to_tiles(f32(derivs["lu"]), B, nu),
-        _to_tiles(f32(derivs["lxx"]), B, nxx),
-        _to_tiles(f32(derivs["luu"]), B, nu * nu),
-        _to_tiles(f32(derivs["lux"]), B, nu * nx),
-    ]
-    if use_ddp:
-        args += [
-            _to_tiles(f32(derivs["fxx"]), B, nx * nxx),
-            _to_tiles(f32(derivs["fux"]), B, nx * nu * nx),
-            _to_tiles(f32(derivs["fuu"]), B, nx * nu * nu),
-        ]
-    else:
-        z = np.zeros((G, N, 1, _SUB, _LANE), np.float32)
-        args += [z, z, z]
-    if ddp_scale is None:
-        ddp_scale = np.ones((B0,), np.float32)
-    args += [
-        _to_tiles(f32(dlb), B, nu),
-        _to_tiles(f32(dub), B, nu),
-        _to_tiles_static(f32(gN), B),
-        _to_tiles_static(f32(HN), B),
-        _to_tiles_static(f32(reg[:, None]), B),
-        _to_tiles_static(f32(ddp_scale[:, None]), B),
-    ]
-
-    # Stage chunking: C stages per grid invocation.  Measured on v5e: C=8
-    # gives no end-to-end speedup over C=1 but doubles Mosaic compile time,
-    # so default to 1 (override via MPC_VERDE_RICCATI_CHUNK for experiments).
-    import os as _os
-
-    C_req = int(_os.environ.get("MPC_VERDE_RICCATI_CHUNK", "1"))
-    C = max(c for c in range(1, min(max(C_req, 1), N) + 1) if N % c == 0)
-    n_chunks = N // C
-
-    # Block specs: chunk-indexed inputs walk the stage axis in reverse.
-    def stage_spec(entries):
-        return pl.BlockSpec(
-            (1, C, entries, _SUB, _LANE),
-            lambda g, s: (g, n_chunks - 1 - s, 0, 0, 0),
-            memory_space=pltpu.VMEM)
-
-    def static_spec(entries):
-        return pl.BlockSpec(
-            (1, entries, _SUB, _LANE), lambda g, s: (g, 0, 0, 0),
-            memory_space=pltpu.VMEM)
-
     ddp_e = (nx * nxx, nx * nu * nx, nx * nu * nu) if use_ddp else (1, 1, 1)
-    in_specs = [
-        stage_spec(nxx), stage_spec(nx * nu), stage_spec(nx), stage_spec(nu),
-        stage_spec(nxx), stage_spec(nu * nu), stage_spec(nu * nx),
-        stage_spec(ddp_e[0]), stage_spec(ddp_e[1]), stage_spec(ddp_e[2]),
-        stage_spec(nu), stage_spec(nu),
-        static_spec(nx), static_spec(nxx), static_spec(1), static_spec(1),
-    ]
-    out_specs = [
-        stage_spec(nu),            # kff
-        stage_spec(nu * nx),       # K
-        pl.BlockSpec((1, _SUB, _LANE), lambda g, s: (g, 0, 0),
-                     memory_space=pltpu.VMEM),  # dV1
-        pl.BlockSpec((1, _SUB, _LANE), lambda g, s: (g, 0, 0),
-                     memory_space=pltpu.VMEM),  # dV2
-        pl.BlockSpec((1, _SUB, _LANE), lambda g, s: (g, 0, 0),
-                     memory_space=pltpu.VMEM),  # gmax
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((G, N, nu, _SUB, _LANE), jnp.float32),
-        jax.ShapeDtypeStruct((G, N, nu * nx, _SUB, _LANE), jnp.float32),
-        jax.ShapeDtypeStruct((G, _SUB, _LANE), jnp.float32),
-        jax.ShapeDtypeStruct((G, _SUB, _LANE), jnp.float32),
-        jax.ShapeDtypeStruct((G, _SUB, _LANE), jnp.float32),
-    ]
+    entries = (nxx, nx * nu, nx, nu, nxx, nu * nu, nu * nx) + ddp_e \
+        + (nu, nu)
+    if use_ddp:
+        stage_in = [derivs[n] for n in _STAGE_INPUTS[:10]]
+    else:
+        z = jnp.zeros((B0, N, 1), jnp.float32)
+        stage_in = [derivs[n] for n in _STAGE_INPUTS[:7]] + [z, z, z]
+    stage_in += [dlb, dub]
+    if ddp_scale is None:
+        ddp_scale = jnp.ones((B0,), jnp.float32)
+    # padded problems get reg = 1 so their (discarded) lanes stay finite
+    args = [soa(x, e) for x, e in zip(stage_in, entries)] + [
+        per_problem(gN, nx), per_problem(HN, nxx),
+        per_problem(reg, 1, fill=1.0)[0], per_problem(ddp_scale, 1)[0]]
 
-    kernel = _make_kernel(nx, nu, N, C, use_ddp, tol)
-    kff_t, K_t, dV1_t, dV2_t, gmax_t = pl.pallas_call(
-        kernel,
-        grid=(G, n_chunks),
+    def stage_spec(e):
+        return pl.BlockSpec((N, e, BLOCK), lambda g: (0, 0, g))
+
+    def static_spec(e):
+        return pl.BlockSpec((e, BLOCK), lambda g: (0, g))
+
+    vec_spec = pl.BlockSpec((BLOCK,), lambda g: (g,))
+    in_specs = ([stage_spec(e) for e in entries]
+                + [static_spec(nx), static_spec(nxx), vec_spec, vec_spec])
+    out_specs = [stage_spec(nu), stage_spec(nu * nx),
+                 vec_spec, vec_spec, vec_spec]
+    out_shape = [
+        jax.ShapeDtypeStruct((N, nu, B), jnp.float32),
+        jax.ShapeDtypeStruct((N, nu * nx, B), jnp.float32),
+        jax.ShapeDtypeStruct((B,), jnp.float32),
+        jax.ShapeDtypeStruct((B,), jnp.float32),
+        jax.ShapeDtypeStruct((B,), jnp.float32),
+    ]
+    kff_t, K_t, dV1, dV2, gmax = pl.pallas_call(
+        _make_kernel(nx, nu, N, BLOCK, use_ddp, tol),
+        grid=(B // BLOCK,),
         in_specs=in_specs,
         out_specs=out_specs,
         out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM((nx, _SUB, _LANE), jnp.float32),    # Vx carry
-            pltpu.VMEM((nxx, _SUB, _LANE), jnp.float32),   # Vxx carry
-            pltpu.VMEM((3, _SUB, _LANE), jnp.float32),     # dV1/dV2/gmax
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
+        backend="triton",
+        compiler_params=plgpu_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                    num_stages=2),
+        interpret=interpret,
+        name="riccati_backward",
     )(*args)
 
-    kff = _from_tiles(kff_t, B, nu)[:B0]
-    K = _from_tiles(K_t, B, nu * nx)[:B0].reshape(B0, N, nu, nx)
-    dV1 = dV1_t.reshape(B)[:B0]
-    dV2 = dV2_t.reshape(B)[:B0]
-    gmax = gmax_t.reshape(B)[:B0]
-    return kff, K, dV1, dV2, gmax
+    kff = kff_t.transpose(2, 0, 1)[:B0]
+    K = K_t.transpose(2, 0, 1)[:B0].reshape(B0, N, nu, nx)
+    return kff, K, dV1[:B0], dV2[:B0], gmax[:B0]

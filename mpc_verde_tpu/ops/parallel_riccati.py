@@ -92,7 +92,7 @@ def _assoc_scan(fn, elems):
         # element algebra exactly; only the depth bound changes, on a
         # path whose purpose is verification, not speed.  The parallel
         # doubling form below serves f32 and every non-CPU backend (the
-        # deployment path: TPU, f32).  Full record in docs/design.md
+        # deployment path: GPU, f32).  Full record in docs/design.md
         # "The x64 associative-scan miscompile".
         first = jax.tree_util.tree_map(lambda a: a[0], elems)
         rest = jax.tree_util.tree_map(lambda a: a[1:], elems)

@@ -2,9 +2,9 @@
 
 The Riccati/box-QP inner loops only ever invert ``nu x nu`` systems (nu <= 2
 in every reference problem family; <= 4 anywhere sensible).  ``jnp.linalg.solve``
-lowers to pivoted LU, which is scalar-heavy and slow on TPU for batched tiny
-matrices; adjugate/cofactor formulas keep everything on the VPU as fused
-elementwise math and vectorize perfectly under ``vmap``.
+lowers to pivoted LU, which is scalar-heavy and slow for batched tiny
+matrices; adjugate/cofactor formulas keep everything as fused elementwise
+math and vectorize perfectly under ``vmap``.
 """
 from __future__ import annotations
 

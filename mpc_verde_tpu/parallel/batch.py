@@ -9,18 +9,20 @@ near-linear because no per-problem data ever crosses chips).
 """
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .mesh import BATCH_AXIS
 
 
-class BatchStats(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class BatchStats:
     """Global (cross-chip) statistics of a batched solve — the batched
     analogue of IPOPT's per-step status string
     (``Trajectory_tracking.py:110``): one failing batch member must be
@@ -65,10 +67,13 @@ def make_sharded_solver(solve: Callable, mesh: Mesh, axis_name: str = BATCH_AXIS
         )
         return res, stats
 
+    # check_vma=False: a Pallas kernel inside the solve (the GPU Riccati
+    # backward) has no varying-axes typing; the stats are psum'd, so they
+    # are replicated as out_specs P() says
     sharded = jax.shard_map(
         _shard_body, mesh=mesh,
         in_specs=(P(axis_name), P(axis_name), P(axis_name)),
-        out_specs=(P(axis_name), P()),
+        out_specs=(P(axis_name), P()), check_vma=False,
     )
 
     @jax.jit

@@ -2,9 +2,9 @@
 
 The reference is strictly single-process CPU (SURVEY.md §2.4); the rebuild's
 scale axis is a 1-D ``batch`` mesh: thousands of independent MPC instances
-sharded across chips, with only scalar reductions (convergence counts, merit
-sums) crossing the interconnect — ICI within a slice, DCN across hosts, all
-inserted by XLA from ``shard_map``/``psum``.
+sharded across devices, with only scalar reductions (convergence counts,
+merit sums) crossing the interconnect (NVLink between the GPUs of a host,
+the network across hosts), all inserted by XLA from ``shard_map``/``psum``.
 """
 from __future__ import annotations
 
@@ -36,8 +36,8 @@ def distributed_init(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Multi-host startup (``jax.distributed.initialize``).
 
-    On TPU pods the arguments are auto-detected from the environment; pass
-    them explicitly elsewhere.  Safe to call when already initialized.
+    Pass the arguments explicitly where no cluster environment provides
+    them.  Safe to call when already initialized.
     """
     try:
         jax.distributed.initialize(coordinator_address, num_processes, process_id)

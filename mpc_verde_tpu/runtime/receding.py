@@ -19,16 +19,18 @@ scripts).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..ocp.spec import OCP
 
 
-class ClosedLoopResult(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class ClosedLoopResult:
     xs: jnp.ndarray           # (Nsim+1, nx) closed-loop state trajectory
     us: jnp.ndarray           # (Nsim, nu) applied controls
     costs: jnp.ndarray        # (Nsim,) OCP cost per solve
@@ -120,8 +122,8 @@ def make_batched_receding_horizon(
     Unlike ``jax.vmap(make_receding_horizon(...))`` — which vmaps the
     *per-problem* solver — this drives a batch-major solver
     (``solver.batched.make_batched_ilqr_solver``) directly, so each control
-    step's solve runs the Pallas fast path with the whole simulation batch
-    filling the VPU lanes.  This is the deployment shape for fleet
+    step's solve runs the batched fast path over the whole simulation
+    batch.  This is the deployment shape for fleet
     simulation / scenario sweeps: the serial per-step loop of
     ``Casadi/single_shooting_v1.py:164-214`` becomes one compiled scan over
     steps x thousands of plants.

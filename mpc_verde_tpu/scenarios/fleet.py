@@ -4,12 +4,11 @@ serving workload.
 The reference's headline scenario is ONE diff-drive robot driven to
 (10, 10, 0) by a serial solve-per-step Python loop
 (``Casadi/single_shooting_v1.py:164-214``, 84 steps to target).  The
-TPU-native deployment shape is the same receding-horizon loop batched over a
-fleet: every MPC step solves all B problems at once on the Pallas fast path,
-and the whole Nsim-step simulation is a single ``lax.scan`` — zero host
-round-trips.  bench.py measures this at ~1e6 MPC steps/s for a 1024-robot
-fleet on one v5e chip (``closedloop_*`` keys), a ~178x real-time margin at
-the reference's T=0.2 s control period.
+batched deployment shape is the same receding-horizon loop over a fleet:
+every MPC step solves all B problems at once on the batched fast path, and
+the whole Nsim-step simulation is a single ``lax.scan`` — zero host
+round-trips.  bench.py times it (``closedloop_*`` keys) against the
+reference's T=0.2 s control period.
 
 Fleet members start from randomized poses in a square around the origin (the
 reference's single start is the batch mean); every robot must reach the
@@ -28,7 +27,10 @@ SPEC = dict(T=0.2, N=10, Nsim=150, B=1024, target=(10.0, 10.0, 0.0),
 
 def build_fleet(B: int = None, n_steps: int = None, backend: str = None,
                 max_iters: int = 30):
-    """Returns the compiled fleet runner + problem tensors."""
+    """Returns the compiled fleet runner + problem tensors.
+
+    ``backend`` is the batched solver's (None: chosen from the platform).
+    """
     import jax
     import jax.numpy as jnp
 
@@ -43,9 +45,6 @@ def build_fleet(B: int = None, n_steps: int = None, backend: str = None,
         s["B"] = B
     if n_steps is not None:
         s["Nsim"] = n_steps
-    if backend is None:
-        backend = "pallas_bw" if jax.default_backend() == "tpu" else "xla"
-
     T, N = s["T"], s["N"]
     F = rk4_step(unicycle.f, T)
     Q = np.diag(np.array(s["Q"], dtype=np.float32))

@@ -4,7 +4,7 @@ The reference re-linearizes ``Ac`` with the time-varying speed ``c[t]`` and
 *rebuilds CasADi functions, c2d, and the whole IPOPT solver inside the
 simulation loop every step* (:124-146) — the dominant cost of that script.
 
-TPU-native fix (SURVEY.md §3.4): the per-step (Ad_t, Bd_t) are *data*.  All
+The fix here (SURVEY.md §3.4): the per-step (Ad_t, Bd_t) are *data*.  All
 Nsim discretizations are precomputed in one vectorized ``c2d`` call, the
 matrices ride in the per-stage parameter vector, and a single compiled solver
 handles every step.  Constants follow the LTI variant (Nt=5, Ntu=1,

@@ -8,7 +8,7 @@ of the box constraints the reference places on every problem (v/omega bounds at
 ``Inverted_pendulum/...mpctools.py:34-42`` and
 ``Trajectory Tracking/Trajectory_tracking_le_LTI.py:66-74``).
 
-Design (TPU-first): the control dimension is tiny (nu <= 2 in every reference
+Design (batch-first): the control dimension is tiny (nu <= 2 in every reference
 family), so instead of an iterative active-set/interior-point method we
 *enumerate all 3^nu active-set patterns* (each coordinate free / at lower / at
 upper), solve each candidate's masked KKT system with closed-form tiny-matrix

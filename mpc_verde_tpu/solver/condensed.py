@@ -1,4 +1,4 @@
-"""Condensed linear-MPC QP: the classical dense treatment, TPU-native.
+"""Condensed linear-MPC QP: the classical dense treatment, batched.
 
 The reference's linear families solve their MPC steps as sparse QPs through
 ``mpc.nmpc(..., isQP=True)`` (the inverted pendulum,
@@ -7,11 +7,11 @@ repeatedly rebuilt LTI/LTV problems (``Trajectory Tracking/*``).  The
 framework's DDP path already solves these exactly (an LQ problem is one
 Riccati pass); this module adds the *condensed* formulation — eliminate the
 states, optimize over the (move-blocked) control moves only — because it maps
-perfectly onto TPU hardware:
+well onto an accelerator:
 
   * condensation is pure matrix algebra: ``x = Sx x0 + Su U`` with prediction
     matrices built once per (A, B, N); the Hessian ``H = Su'Q̄Su + R̄`` and
-    gradient are batched GEMMs on the MXU;
+    gradient are batched GEMMs;
   * move blocking (``Ntu`` free moves, the pendulum's Du pinning at
     :34-42) is a column-blocking matrix folded into ``Su`` — the QP shrinks
     to ``Ntu*nu`` variables;

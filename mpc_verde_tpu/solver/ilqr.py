@@ -1,4 +1,4 @@
-"""Box-constrained iLQR / DDP — the TPU-native replacement for CasADi+IPOPT.
+"""Box-constrained iLQR / DDP — the JAX replacement for CasADi+IPOPT.
 
 The reference solves every MPC step as a sparse NLP through
 ``ca.nlpsol('solver','ipopt',...)`` (``Casadi/single_shooting_v1.py:131``) or
@@ -26,13 +26,12 @@ serial sweep ``Phiref.py:24-28`` begs for).
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
+from functools import partial, wraps
 from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..ocp.spec import OCP
 from ..ops.linearize import linearize_trajectory
@@ -85,15 +84,14 @@ class ILQROptions:
     al_mu_factor: float = 10.0
     boxqp_tol: float = 1e-8
     # lax.scan unroll factor for the rollout / line-search forward scans
-    # (batched + streaming solvers).  MEASURED SLOWER THAN 1 on v5e at the
-    # bench shapes (benchmarks/glue.py r4: 167/228/275 us at unroll 1/4/8 —
-    # the ~4.2 us scan-step launch is cheaper than what unrolled bodies
-    # lose to register pressure), so the default stays 1; the knob exists
-    # for other shapes/toolchains.  Numerics are identical (same op order).
+    # (batched + streaming solvers).  Numerics are identical (same op
+    # order); the GPU optimum is not measured.
     ls_unroll: int = 1
 
 
-class ILQRResult(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class ILQRResult:
     xs: jnp.ndarray          # (N+1, nx) optimal state trajectory
     us: jnp.ndarray          # (N, nu) optimal controls
     cost: jnp.ndarray        # scalar final (unaugmented) cost
@@ -108,6 +106,22 @@ class ILQRResult(struct.PyTreeNode):
     max_violation: jnp.ndarray  # state-bound violation (0 if no bounds);
                              # the multiple-shooting solver stores its
                              # dynamics-defect gap here instead
+
+
+def pin_precision(solve):
+    """Trace ``solve`` under the highest matmul precision.
+
+    Every dot traced inside — the user's dynamics and costs and the
+    solver's own Riccati products — then runs in full f32 (or f64): on a GPU
+    an unpinned f32 product may run in TF32 (about three decimal digits),
+    far looser than the solvers' cost and gradient tolerances.
+    """
+    @wraps(solve)
+    def pinned(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return solve(*args, **kwargs)
+
+    return pinned
 
 
 def _stage_boxqp_with_gain(Quu, Qu, Qux, lb, ub, tol):
@@ -423,4 +437,4 @@ def make_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions()):
             iterations=it, converged=converged, max_violation=viol,
         )
 
-    return solve
+    return pin_precision(solve)

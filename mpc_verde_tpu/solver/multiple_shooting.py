@@ -6,7 +6,7 @@ with defect equality constraints (``Casadi/multiple_shooting_casadi.py:
 on poor initial guesses, and ``difference.py`` checks that single- and
 multiple-shooting answers agree.
 
-TPU-native equivalent: a feasibility-gap DDP (FDDP-style).  The state
+The equivalent here: a feasibility-gap DDP (FDDP-style).  The state
 trajectory is kept as an iterate that need not satisfy the dynamics; each
 backward pass processes the defect (gap) ``d_k = F(x_k, u_k) - x_{k+1}``
 through the value-function recursion, and the forward pass contracts the gaps

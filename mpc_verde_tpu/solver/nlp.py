@@ -1,6 +1,6 @@
 """General NLP solver: augmented Lagrangian + box-projected Newton.
 
-The TPU-native replacement for the *generic* entry point of the reference's
+The JAX replacement for the *generic* entry point of the reference's
 solver stack — ``ca.nlpsol('solver', 'ipopt', {'f','x','g','p'}, opts)``
 (``Casadi/single_shooting_v1.py:131``, ``Casadi/multiple_shooting_casadi.py:197``)
 — for problems that are NOT expressed in optimal-control form.  (OCP-shaped
@@ -40,7 +40,6 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +64,9 @@ class NLPOptions:
     active_tol: float = 1e-9      # bound-activity detection width
 
 
-class NLPResult(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class NLPResult:
     x: jnp.ndarray            # (n,) primal solution
     f: jnp.ndarray            # objective at x
     g: jnp.ndarray            # (m,) constraint values at x

@@ -9,7 +9,7 @@ rollout, together roughly the cost of ONE DDP iteration — lands the initial
 guess close enough that the solver only refines (measured study in
 docs/design.md "Warm-start study").
 
-This is the TPU-native analogue of what the reference gets from IPOPT
+This is the batched analogue of what the reference gets from IPOPT
 warm starts between receding-horizon steps (``Casadi/single_shooting_v1.py:
 17-27`` shifts the previous solution); for the *first* solve of a problem the
 reference has nothing — it eats the full cold IPOPT solve.  Here the cold

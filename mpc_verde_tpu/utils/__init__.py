@@ -1,3 +1,4 @@
 from .tree import tree_where
 from .timing import Timer, timed
-from .platform import force_cpu, force_tpu
+from .platform import (KERNEL_BACKEND, force_cpu, resolve_backend,
+                       use_compile_cache)

@@ -5,7 +5,7 @@
 // Trajectory_tracking_le_LTI.py:104-128, leitura.py:98-127).  This library is
 // the native equivalent: bulk CSV ingest, vectorized reference synthesis,
 // stage-window assembly, and an independent float64 Riccati LQR solver used
-// as a golden cross-check for the TPU solver's unconstrained path.
+// as a golden cross-check for the JAX solver's unconstrained path.
 #pragma once
 #include <cstdint>
 
@@ -37,7 +37,7 @@ void mv_stage_window(const double* refs, int64_t n, int64_t np_, int64_t nt,
                      int64_t nsim, double* out);
 
 // Finite-horizon discrete LQR via Riccati recursion (float64, independent
-// implementation for cross-checking the TPU solver).  Row-major A (nx,nx),
+// implementation for cross-checking the JAX solver).  Row-major A (nx,nx),
 // B (nx,nu), Q (nx,nx), R (nu,nu); returns open-loop controls us (N, nu)
 // from x0 and the optimal cost.  nu <= 4, nx <= 16.
 double mv_lqr_riccati(const double* A, const double* B, const double* Q,

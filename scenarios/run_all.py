@@ -1,10 +1,11 @@
 """Run every reference scenario family end-to-end and print metrics.
 
 Usage:
-    python scenarios/run_all.py [--quick] [--family NAME] [--plot] [--tpu]
+    python scenarios/run_all.py [--quick] [--family NAME] [--plot] [--device]
 
 Families: diffdrive, circular, lti, ltv, dynamic, frenet (default: all).
-Runs on host CPU (x64) by default for full precision; --tpu uses the chip.
+Runs on host CPU (x64) by default for full precision; --device runs on JAX's
+default device (the GPU where there is one) in f32.
 """
 from __future__ import annotations
 
@@ -23,10 +24,11 @@ def main():
     ap.add_argument("--quick", action="store_true", help="short closed loops")
     ap.add_argument("--family", default="all")
     ap.add_argument("--plot", action="store_true", help="write dashboards to ./plots")
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--device", action="store_true",
+                    help="run on the default device instead of the host CPU")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if not args.device:
         from mpc_verde_tpu.utils import force_cpu
 
         force_cpu()

@@ -2,7 +2,7 @@
 
 The condensed formulation eliminates states and optimizes the move-blocked
 controls directly — the classical dense treatment of the reference's
-``isQP=True`` pendulum family, as batched MXU matrix algebra.
+``isQP=True`` pendulum family, as batched matrix algebra.
 """
 import jax
 import jax.numpy as jnp

@@ -208,6 +208,25 @@ def test_barrier_term_boundary_semantics():
     assert not (float(_barrier_term(on_bound, lb, ub, 1e-2)) < 1e30)
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_barrier_term_hessian_finite_on_bound(dtype):
+    """The crossover round (mu = 0) linearizes at controls pinned on their
+    bounds: the barrier's Hessian there must be exactly zero, not NaN — in
+    f32 too, where a 1e-30 floor squared underflows to 0."""
+    from mpc_verde_tpu.solver.ipm import _barrier_term
+
+    lb = np.array([-1.0, -0.5])
+    ub = np.array([1.0, 0.5])
+    on_bound = jnp.array([1.0, 0.0], dtype)
+    H = jax.hessian(lambda uu: _barrier_term(uu, lb, ub, dtype(0.0)))(
+        on_bound)
+    np.testing.assert_array_equal(np.array(H), 0.0)
+    interior = jnp.array([0.3, -0.2], dtype)
+    H = jax.hessian(lambda uu: _barrier_term(uu, lb, ub, dtype(1e-2)))(
+        interior)
+    assert np.isfinite(np.array(H)).all()
+
+
 @pytest.mark.slow
 def test_barrier_over_scan_backend_composes():
     """VERDICT r3 #7: the error message at batched.py's scan guard points

@@ -88,6 +88,30 @@ def test_sharded_streaming_matches_unsharded():
     np.testing.assert_array_equal(np.array(ref.us), np.array(res.us))
 
 
+def test_sharded_streaming_with_kernel_matches_unsharded():
+    """The Riccati kernel (interpreted here) inside shard_map: it carries no
+    varying-axes typing, which the sharded solver must accept."""
+    from mpc_verde_tpu.solver.streaming import make_streaming_solver
+
+    ssolve = make_streaming_solver(_ocp(), mv.ILQROptions(max_iters=60),
+                                   backend="triton", interpret=True,
+                                   batch_width=2, restarts=1)
+    solve_batch = make_sharded_solver(ssolve, batch_mesh(), batched=True)
+
+    M = 16  # 2 problems per shard
+    rng = np.random.default_rng(29)
+    x0s = jnp.array(rng.uniform(-1, 1, (M, 3)), jnp.float32)
+    params = jnp.broadcast_to(TARGET.astype(jnp.float32), (M, N + 1, 3))
+    us0 = jnp.zeros((M, N, 2), jnp.float32)
+
+    res, stats = solve_batch(x0s, params, us0)
+    assert int(stats.n_total) == M
+    assert int(stats.n_converged) == M
+    ref = jax.jit(ssolve)(x0s, params, us0)
+    np.testing.assert_array_equal(np.array(ref.cost), np.array(res.cost))
+    np.testing.assert_array_equal(np.array(ref.us), np.array(res.us))
+
+
 def test_sharded_streaming_barrier_matches_unsharded():
     """The streaming IPM (rounds continuation + packed refill) under
     shard_map: the mu-column concat and the per-slot round machinery must
